@@ -1,4 +1,4 @@
-"""Replay a ROS1 bag through the TPU pipeline — the equivalent of the
+"""Replay a ROS1 bag through the JAX pipeline — the equivalent of the
 reference's `rosbag play slope02_01.bag` + `roslaunch liorf
 run_lio_sam_6t.launch` workflow (src/liorf/README.md:137-158).
 

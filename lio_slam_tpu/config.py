@@ -1,6 +1,6 @@
 """Typed configuration tree for the SLAM engine.
 
-TPU-native replacement for the reference's `ParamServer` (~90 rosparams loaded
+Replacement for the reference's `ParamServer` (~90 rosparams loaded
 in `src/liorf/include/utility.h:72-367`) plus the per-dataset YAML presets
 (`src/liorf/config/*.yaml`).  One frozen dataclass tree; presets are factory
 functions; everything that shapes a compiled program (tensor capacities, grid
@@ -30,8 +30,9 @@ class SensorType:
 class StaticConfig:
     """Capacities and shapes baked into compiled programs.
 
-    The reference uses dynamic PCL clouds and growing GTSAM graphs; on TPU every
-    one of those becomes a fixed-capacity masked tensor.  Changing any field
+    The reference uses dynamic PCL clouds and growing GTSAM graphs; in a
+    compiled XLA program every one of those becomes a fixed-capacity masked
+    tensor.  Changing any field
     here triggers recompilation — keep them coarse so recompiles are rare.
     """
 
@@ -136,7 +137,7 @@ class RegistrationConfig:
     nn_radius: float = 1.0                # 5-NN max distance (kd-tree radius semantics)
     min_surf_points: int = 30             # skip registration below this (:1841)
     # neighbour-search backend: "grid" = voxel hash grid (production, O(N*27c));
-    # "brute" = chunked MXU matmul top-k (exact oracle / fallback)
+    # "brute" = chunked matmul top-k (exact oracle / fallback)
     knn_backend: str = "grid"
     # bucket occupancy cap: a 0.4 m-downsampled plane crosses a 1 m cell with
     # ~6 points (x3 with the z-halo layout, x27 full-halo); query cost and
@@ -146,38 +147,20 @@ class RegistrationConfig:
     # halo bucket layout (ops/voxel_grid.py): "none" = insert once, query 27
     # cells; "z" = insert under z+-1 too, query 9 cells; "xy" = insert under
     # the xy 3x3, query 3 cells (z+-1) — fewest, widest gather rows; "full" =
-    # insert under all 27 neighbour cells, query exactly ONE contiguous bucket — the
-    # layout the fused Pallas registration kernel consumes (gathers on TPU
-    # are granularity-bound, so one wide row beats 9-27 narrow ones).
-    # max_per_cell must scale with the layout: ~24 for "z", ~128 for "full"
+    # insert under all 27 neighbour cells, query exactly ONE contiguous
+    # bucket.  max_per_cell must scale with the layout: ~24 for "z", ~128 for
+    # "full"
     grid_halo: str = "z"
     # local-map maintenance: "incremental" keeps one persistent voxel map
     # updated on keyframe insertion (iVox-style; no per-scan rebuild, the
     # production path); "rebuild" reassembles from nearby keyframes each scan
     # (the reference's extractNearby semantics, exact but slower)
     local_map_mode: str = "incremental"
-    # fused Pallas correspondence kernel (ops/fused_corr.py): distance,
-    # 5-NN, plane fit, robust weight, Jacobian and the 6x6 normal-equation
-    # reduction in one VMEM pass — 2.2x the unfused XLA pipeline per GN
-    # iteration on v5e.  Auto-disabled on the CPU backend (tests compare the
-    # two paths directly in interpret mode instead).
-    use_fused_kernel: bool = True
     # sort scan points by voxel cell before registration: permutation-
-    # invariant result, and the fused kernel's bucket gather becomes
-    # near-sequential instead of random (-20% per fused call measured in
-    # isolation) — but the argsort + permutation gathers cost MORE than
-    # the locality saves inside the full step (403 -> 381 scans/s
-    # end-to-end), so it stays off by default; useful only if a future
-    # kernel holds more gather state per bucket
+    # invariant result; spatially adjacent queries then read the same
+    # candidate buckets back to back.  Off by default: the argsort and the
+    # permutation gathers have not paid for themselves end to end
     sort_scan_by_cell: bool = False
-    # correspondence refresh period for the fused path: 1 = re-gather the
-    # candidate buckets every GN iteration (the reference re-runs its kd-tree
-    # 5-NN per iteration, surfOptimization inside the :1848 loop); n>1 holds
-    # the gathered 1 m-cell candidate SUPERSET for n-1 iterations while the
-    # kernel still re-selects 5-NN at each new pose — near-lossless (GN steps
-    # are <5 cm near convergence) and skips the HBM gather (~87% of the
-    # fused call) on the held iterations
-    corr_refresh_every: int = 1
     # per-scan downsample: "packed" (default) = exact centroid grid via a
     # 3-operand packed sort (30-bit exact voxel ids + quantized offsets,
     # 1.4x cheaper than "voxel" and collision-free; needs the working volume

@@ -1,6 +1,6 @@
 """Factor definitions for the keyframe pose graph.
 
-TPU-native replacement for the GTSAM factor types the reference uses
+Replacement for the GTSAM factor types the reference uses
 (`src/liorf/src/mapOptmization.cpp:1930-2062`):
 
 - `PriorFactor<Pose3>` on the first keyframe (:1933, variances

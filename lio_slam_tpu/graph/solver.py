@@ -1,9 +1,9 @@
 """Batched Gauss-Newton pose-graph solver.
 
-TPU-native replacement for GTSAM iSAM2 as the reference uses it
+Replacement for GTSAM iSAM2 as the reference uses it
 (`src/liorf/src/mapOptmization.cpp:247-251, 2082-2092` and
-`imuPreintegration.cpp`): dense block assembly of the normal equations on the
-MXU + Cholesky solve, instead of incremental Bayes-tree updates (pointer
+`imuPreintegration.cpp`): dense block assembly of the normal equations as
+matrix products + Cholesky solve, instead of incremental Bayes-tree updates (pointer
 chasing, hostile to XLA).  Incremental-smoothing behavior is reproduced at the
 call policy level: 2 GN iterations per new keyframe, extra iterations after
 loop/GPS factors (the reference's `update()` x2 + x5 pattern), and marginal
@@ -17,18 +17,18 @@ sliding window (cheap per-scan solve) or the full graph (loop correction =
 On Schur complements: classic visual/landmark BA reduces out landmark blocks
 via the Schur complement before solving the camera system.  This graph has
 no landmark variables — scan-to-map correspondences are folded into each
-pose's 6x6 normal-equation block inside registration (`ops/fused_corr.py`),
+pose's 6x6 normal-equation block inside registration (`ops/registration.py`),
 which IS the Schur trick applied at the measurement level: points never
 become graph variables.  What remains is a pure pose chain + sparse
 loop/GPS factors, for which the equilibrated dense/window Cholesky is the
-right TPU shape.  The distributed solve (`parallel/graph.py`) reduces
-per-shard normal-equation blocks with psum — the Schur-style reduction over
-ICI described in SURVEY.md §2.4.
+right shape for a compiled batched program.  The distributed solve (`parallel/graph.py`) reduces
+per-shard normal-equation blocks with psum — the Schur-style reduction
+described in SURVEY.md §2.4.
 """
 
 from __future__ import annotations
 
-from functools import partial
+from functools import partial, wraps
 from typing import NamedTuple
 
 import jax
@@ -154,7 +154,34 @@ def solve(graph: F.PoseGraph, active_mask: jax.Array,
     return SolveResult(graph=g, delta_norm=dn, chi2=chi2)
 
 
+def damping(dtype) -> float:
+    """Relative diagonal damping of an equilibrated factorization: 1e-5
+    keeps a float32 one positive definite; float64 needs only 1e-12."""
+    return 1e-12 if dtype == jnp.float64 else 1e-5
+
+
+def in_float64(marginal):
+    """Run `marginal(graph, idx)` in float64, returning the graph's dtype.
+
+    The GPS gate compares against poseCovThreshold (25 m²) a variance that
+    the first pose's 1e8 m² translation prior dominates until a GPS factor
+    lands.  A float32 factorization's 1e-5 relative damping caps every
+    marginal near a few m² (odometry information 1e4 per keyframe), so the
+    gate would never open."""
+
+    @wraps(marginal)
+    def wrapped(graph: F.PoseGraph, idx: jax.Array) -> jax.Array:
+        with jax.enable_x64(True):
+            g64 = jax.tree.map(
+                lambda a: a.astype(jnp.float64)
+                if jnp.issubdtype(a.dtype, jnp.floating) else a, graph)
+            return marginal(g64, idx).astype(graph.poses.dtype)
+
+    return wrapped
+
+
 @jax.jit
+@in_float64
 def marginal_covariance(graph: F.PoseGraph, idx: jax.Array) -> jax.Array:
     """(6,6) marginal covariance of pose `idx` — inv(H) block, like
     isam->marginalCovariance (mapOptmization.cpp:2128)."""
@@ -164,7 +191,7 @@ def marginal_covariance(graph: F.PoseGraph, idx: jax.Array) -> jax.Array:
     d = jnp.sqrt(jnp.maximum(jnp.diagonal(H), 1e-12))
     Dinv = 1.0 / d
     Hs = H * Dinv[:, None] * Dinv[None, :]
-    Hs = Hs + jnp.eye(H.shape[0], dtype=H.dtype) * 1e-5
+    Hs = Hs + jnp.eye(H.shape[0], dtype=H.dtype) * damping(H.dtype)
     c = jax.scipy.linalg.cho_factor(Hs, lower=True)
     basis = jnp.zeros((K * 6, 6), H.dtype)
     rows = idx * 6 + jnp.arange(6)

@@ -29,9 +29,7 @@ Marginal covariance of pose k (GPS gating, poseCovariance(3,3)/(4,4)
 Everything is float32 with Jacobi equilibration (the reference's noise
 models span 14 orders of magnitude; see solver._equilibrated_cholesky_solve).
 
-Measured on TPU v5e (tools/prof_sparse.py): 5-iteration full solve
-35/73/122 ms at K=256/1024/2048 (dense: 37/202/OOM-scale ms), marginal
-covariance 26/32/44 ms (dense: 28/62/—).  The full solve runs only on loop
+`tools/prof_sparse.py` times both solvers against K.  The full solve runs only on loop
 events (reference budget 1-5 s per loop attempt, BASELINE.md); the marginal
 gates GPS factors per keyframe.
 """
@@ -45,10 +43,10 @@ import jax
 import jax.numpy as jnp
 
 from lio_slam_tpu.graph import factors as F
-from lio_slam_tpu.graph.solver import SolveResult, _equilibrated_cholesky_solve
+from lio_slam_tpu.graph.solver import (SolveResult, _equilibrated_cholesky_solve,
+                                       damping, in_float64)
 from lio_slam_tpu.utils import se3
 
-_DAMP = 1e-5
 _BIG = 1e8          # W⁻¹ diag for masked loop rows (correction -> 0)
 
 
@@ -66,11 +64,12 @@ def tridiag_factor(D: jax.Array, Loff: jax.Array) -> TridiagFactor:
     ignored)."""
     K = D.shape[0]
     dtype = D.dtype
+    damp = damping(dtype)
     # symmetric Jacobi equilibration
     diag = jnp.diagonal(D, axis1=-2, axis2=-1)              # (K, 6)
     s = 1.0 / jnp.sqrt(jnp.maximum(diag, 1e-12))
     Ds = D * s[:, :, None] * s[:, None, :]
-    Ds = Ds + jnp.eye(6, dtype=dtype)[None] * _DAMP
+    Ds = Ds + jnp.eye(6, dtype=dtype)[None] * damp
     # Lm[i] = T[i, i-1] scaled by s_i (rows) and s_{i-1} (cols)
     Lm = jnp.concatenate([jnp.zeros((1, 6, 6), dtype), Loff[:-1]], axis=0)
     Lm = Lm * s[:, :, None] * jnp.concatenate(
@@ -81,7 +80,7 @@ def tridiag_factor(D: jax.Array, Loff: jax.Array) -> TridiagFactor:
         # G = L c_prev⁻¹ Lᵀ  via triangular solves on the stored Cholesky
         Z = jax.scipy.linalg.cho_solve((c_prev_chol, True), Li.T)   # c⁻¹ Lᵀ
         Ci = Di - Li @ Z
-        Ci = 0.5 * (Ci + Ci.T) + jnp.eye(6, dtype=dtype) * _DAMP
+        Ci = 0.5 * (Ci + Ci.T) + jnp.eye(6, dtype=dtype) * damp
         chol = jnp.linalg.cholesky(Ci)
         return chol, chol
 
@@ -246,7 +245,7 @@ def _chol_solve_multi(S: jax.Array, B: jax.Array) -> jax.Array:
     d = jnp.sqrt(jnp.maximum(jnp.diagonal(S), 1e-12))
     Dinv = 1.0 / d
     Ss = S * Dinv[:, None] * Dinv[None, :]
-    Ss = Ss + jnp.eye(S.shape[0], dtype=S.dtype) * 1e-5
+    Ss = Ss + jnp.eye(S.shape[0], dtype=S.dtype) * damping(S.dtype)
     c = jax.scipy.linalg.cho_factor(Ss, lower=True)
     y = jax.scipy.linalg.cho_solve(c, B * Dinv[:, None])
     return y * Dinv[:, None]
@@ -307,6 +306,7 @@ def solve_sparse(graph: F.PoseGraph, iterations: int = 5) -> SolveResult:
 
 
 @jax.jit
+@in_float64
 def marginal_covariance_sparse(graph: F.PoseGraph, idx: jax.Array) -> jax.Array:
     """(6,6) marginal covariance of pose `idx` from the sparse factorization
     (isam->marginalCovariance parity for GPS gating, :2128-2133)."""

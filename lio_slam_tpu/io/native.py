@@ -1,6 +1,7 @@
 """ctypes bindings for the native host runtime (native/liorf_runtime.cpp).
 
-Builds lazily via the Makefile on first use; every class has a documented
+Built from source by the Makefile on first use (the library is not kept
+in the repository); every class has a documented
 pure-python behavioural twin in the test suite, so the bindings are optional —
 but production feeds should use them (SPSC rings drain without holding the
 GIL on the producer side).
@@ -17,24 +18,39 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libliorf_runtime.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "liorf_runtime.cpp")
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def _build() -> bool:
+    """Compile into a name of this process's own and move it into place:
+    concurrent first uses (parallel test workers) never load a half-written
+    file, and the last finished build wins."""
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
+        subprocess.run(["make", "-C", _NATIVE_DIR,
+                        f"TARGET={os.path.basename(tmp)}"],
+                       check=True, capture_output=True)
+        os.replace(tmp, _LIB_PATH)
         return True
     except Exception:
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _stale() -> bool:
+    return (not os.path.exists(_LIB_PATH)
+            or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH))
 
 
 def load() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not _build():
+    if _stale() and not _build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     c = ctypes

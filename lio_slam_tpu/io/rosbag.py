@@ -2,7 +2,7 @@
 
 The reference's entire validation regime is bag replay (`rosbag play
 slope02_01.bag ...`, src/liorf/README.md:137-158).  This module lets the
-TPU pipeline ingest those same bags with no ROS installation: a minimal
+JAX pipeline ingest those same bags with no ROS installation: a minimal
 rosbag 2.0 parser (records, chunk decompression, connection index) plus
 hand-rolled deserializers for the message types the pipeline consumes:
 

@@ -1,6 +1,6 @@
 """Scan deskew: IMU rotation-table integration + per-point motion compensation.
 
-TPU-native rebuild of `ImageProjection`'s deskew path
+Rebuild of `ImageProjection`'s deskew path
 (`src/liorf/src/imageProjection.cpp:339-575`):
 
 - `imuDeskewInfo` (:359-418): integrates gyro over the scan window into a
@@ -14,7 +14,8 @@ TPU-native rebuild of `ImageProjection`'s deskew path
 
 Everything is fixed-shape: the IMU window is `(T,)` masked samples, the scan is
 `(N,)` masked points; interpolation indices come from a vectorized
-compare-and-sum instead of binary search (TPU-friendly, O(N·T) compares).
+compare-and-sum instead of binary search (O(N·T) compares, no
+data-dependent control flow).
 """
 
 from __future__ import annotations

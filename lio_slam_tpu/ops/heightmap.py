@@ -4,7 +4,7 @@ Replaces the reference's grid_map_pcl pipeline
 (`src/grid_map/grid_map_pcl/src/grid_map_pcl_loader_node.cpp:45-72` +
 `GridMapPclLoader`): the downstream consumer subscribes the local planning
 cloud and publishes a `/height_map` GridMap.  The whole 26.5 kLoC library's
-used capability is "rasterize a cloud into an elevation grid" — on TPU that
+used capability is "rasterize a cloud into an elevation grid" — here that
 is one scatter-max (elevation), scatter-add (counts/occupancy) and an
 optional scatter-min, over a fixed-size grid centered on the vehicle.
 """
@@ -132,7 +132,7 @@ def signed_distance_2d(occupied: jax.Array, resolution) -> jax.Array:
     (`src/grid_map/grid_map_sdf/src/SignedDistanceField.cpp` builds per-slice
     2D EDTs).  Jump-flooding over roll-shifted seed maps: O(log n) passes of
     a 9-neighbour min — exact for convex regions, <=1-cell error elsewhere
-    (JFA's standard bound), and entirely gather-free on TPU."""
+    (JFA's standard bound), and entirely gather-free."""
     H, W = occupied.shape
     ii, jj = jnp.meshgrid(jnp.arange(H, dtype=jnp.float32),
                           jnp.arange(W, dtype=jnp.float32), indexing="ij")

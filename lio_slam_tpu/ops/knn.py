@@ -1,9 +1,10 @@
 """k-nearest-neighbour search over masked point sets.
 
-TPU replacement for the reference's per-point `pcl::KdTreeFLANN` 5-NN queries
+Replacement for the reference's per-point `pcl::KdTreeFLANN` 5-NN queries
 in the registration hot loop (`mapOptmization.cpp:1631` kdtreeSurfFromMap) and
-the keypose radius searches.  Kd-trees are pointer-chasing and TPU-hostile;
-instead we compute squared distances as one MXU matmul per map chunk
+the keypose radius searches.  Kd-trees are pointer-chasing and compile to
+nothing useful in XLA; instead we compute squared distances as one matmul
+per map chunk
 (‖q-r‖² = ‖q‖² + ‖r‖² − 2 q·rᵀ) and maintain a running top-k with
 `lax.top_k`, scanning over chunks so peak memory is N×(chunk+k) instead of
 N×M.  Exact (not approximate) — matches kd-tree results up to ties.

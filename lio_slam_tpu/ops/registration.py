@@ -1,6 +1,6 @@
 """Scan-to-map point-to-plane registration (Gauss-Newton with degeneracy gate).
 
-TPU-native rebuild of the reference's hot loop
+Rebuild of the reference's hot loop
 (`src/liorf/src/mapOptmization.cpp:1618-1897`):
 
 - `surfOptimization` (:1618-1687): per scan point, 5-NN into the local map,
@@ -15,8 +15,8 @@ TPU-native rebuild of the reference's hot loop
   with weight imuRPYWeight, then clamp roll/pitch/z to tolerances.
 
 Instead of the reference's per-point OpenMP loop + transcribed Euler-derivative
-expressions, the whole scan is one batched pipeline: MXU matmul k-NN
-(`ops/knn.py`), batched 3x3 plane solves, rotation Jacobian via `jax.jacfwd`
+expressions, the whole scan is one batched pipeline: hash-grid or matmul
+k-NN (`ops/voxel_grid.py`, `ops/knn.py`), batched 3x3 plane solves, rotation Jacobian via `jax.jacfwd`
 of the Euler parameterization (exact, no hand-derived trig), masked
 reductions into the 6x6 normal equations, and a `lax.while_loop` over GN
 iterations so early convergence skips work under jit.
@@ -57,8 +57,8 @@ class RegistrationResult(NamedTuple):
 def _eigpair_3x3(A: jax.Array, which: str):
     """Closed-form eigenpair of batched symmetric 3x3 matrices (Smith's
     trigonometric method + row-cross eigenvector).  XLA's batched `eigh` runs
-    an iterative solver per matrix (~29 ms for 8k on TPU v5e); this is pure
-    element-wise VPU work (<1 ms).
+    an iterative solver per matrix; this is pure element-wise work that XLA
+    fuses into the surrounding correspondence pass.
 
     which: "min" or "max" — returns (lam_which (...), lam_mid (...), v (..., 3)).
     """
@@ -120,7 +120,7 @@ def fit_planes(neighbors: jax.Array, neighbor_valid: jax.Array,
     # Centroid + covariance smallest-eigenvector fit.  (The reference solves
     # A·n = -1, a parameterization that cannot represent planes through the
     # origin and biases normals when |d| is small; the eigen fit is exact for
-    # every plane and equally cheap batched on TPU.)
+    # every plane and equally cheap batched.)
     centroid = jnp.mean(A, axis=1, keepdims=True)       # (N, 1, 3)
     centered = A - centroid
     cov = jnp.einsum("nki,nkj->nij", centered, centered) / k
@@ -172,7 +172,7 @@ def find_line_correspondences(scan: jax.Array, scan_mask: jax.Array,
     `_normal_equations` applies unchanged.
 
     Corner sets are small (<=20 edges/ring-sector, featureExtraction.cpp:141-
-    237), so the exact brute-force MXU k-NN is the right backend here."""
+    237), so the exact brute-force matmul k-NN is the right backend here."""
     R, t = se3.pose6_to_Rt(pose6)
     scan_w = se3.transform_points(R, t, scan)
     res = knn_mod.knn(scan_w, scan_mask, map_pts, map_mask, k=k)
@@ -254,62 +254,17 @@ def _cell_sorted(scan: jax.Array, scan_mask: jax.Array, cell_size: float):
     """Sort scan points by voxel cell id (masked points last).
 
     The registration result is permutation-invariant (the 6x6 normal
-    equations are a sum over points), but the fused kernel's bucket gather
-    is not: spatially-adjacent queries read the same 9 buckets, so cell
-    order turns random HBM bucket reads into near-sequential ones —
-    measured 2.04 -> 1.64 ms per fused call (-20%) at the bench shapes.
-    (Hash order was also tried: 3.12 ms — WORSE, since hash-adjacent
-    buckets are spatially random; locality must follow cells.)  Body-frame
-    cells are used — rigid transforms preserve adjacency, so the world-
-    frame gather inherits the locality."""
+    equations are a sum over points); sorting only changes the order in
+    which the candidate buckets are read, so that spatially adjacent
+    queries read the same buckets one after another.  Body-frame cells are
+    used — rigid transforms preserve adjacency, so the world-frame gather
+    inherits the locality."""
     c = jnp.clip(jnp.floor(scan / cell_size).astype(jnp.int32) + 512,
                  0, 1023)
     key = (c[:, 0] << 20) | (c[:, 1] << 10) | c[:, 2]
     key = jnp.where(scan_mask, key, jnp.int32(1 << 30))
     order = jnp.argsort(key)
     return scan[order], scan_mask[order]
-
-
-def _maybe_fused(scan, scan_mask, grid, cfg: RegistrationConfig):
-    """Return the fused-kernel ne_fn when enabled and applicable (grid
-    backend, non-CPU platform — the CPU backend has no Mosaic compiler, and
-    the unfused XLA path is semantically identical there).
-
-    With cfg.corr_refresh_every > 1 the HBM bucket gather (~87% of the fused
-    call) is reused across GN iterations: returns a
-    (gather_fn, from_cand_fn, refresh) triple and `_gn_loop` carries the
-    candidate block.  The in-kernel 5-NN still re-selects at every
-    iteration's pose — only the 1 m-cell candidate SUPERSET is held, which
-    GN steps (<5 cm, <0.05 deg per iter near convergence) almost never leave."""
-    if grid is None or not cfg.use_fused_kernel:
-        return None
-    if jax.default_backend() == "cpu":
-        return None
-    from lio_slam_tpu.ops import fused_corr
-
-    if cfg.corr_refresh_every <= 1:
-        def ne_fn(pose):
-            return fused_corr.fused_normal_equations(
-                grid, scan, scan_mask, pose, halo=cfg.grid_halo,
-                nn_radius=cfg.nn_radius,
-                plane_dist_thresh=cfg.plane_dist_thresh,
-                robust_weight_floor=cfg.robust_weight_floor)
-
-        return ne_fn
-
-    def gather_fn(pose):
-        Rm, t = se3.pose6_to_Rt(pose)
-        scan_w = se3.transform_points(Rm, t, scan)
-        return fused_corr.gather_planar(grid, scan_w, cfg.grid_halo)
-
-    def from_cand_fn(cand, hh, pose):
-        return fused_corr.fused_ne_from_candidates(
-            cand, hh, scan, scan_mask, pose, halo=cfg.grid_halo,
-            nn_radius=cfg.nn_radius,
-            plane_dist_thresh=cfg.plane_dist_thresh,
-            robust_weight_floor=cfg.robust_weight_floor)
-
-    return (gather_fn, from_cand_fn, int(cfg.corr_refresh_every))
 
 
 class _LoopState(NamedTuple):
@@ -320,8 +275,6 @@ class _LoopState(NamedTuple):
     converged: jax.Array
     num_inliers: jax.Array
     mean_residual: jax.Array
-    cand: jax.Array            # (3R, N) carried candidate block ((0, 0) unused)
-    hh: jax.Array              # (O, N) carried bucket ids ((0, 0) unused)
 
 
 def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
@@ -329,26 +282,16 @@ def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
              ne_fn=None) -> RegistrationResult:
     """Shared GN iteration loop.
 
-    `corr_fn(pose) -> Correspondences` is the unfused path; when `ne_fn` is
-    given (`ne_fn(pose) -> (AtA, Atb, n_inliers, weight_sum, wres_sum)`, the
-    fused Pallas kernel) it replaces correspondence + normal-equation
-    assembly wholesale."""
+    `corr_fn(pose) -> Correspondences` feeds the normal-equation assembly;
+    when `ne_fn` is given (`ne_fn(pose) -> (AtA, Atb, n_inliers, weight_sum,
+    wres_sum)`, e.g. the summed surf + corner terms of `register_loam`) it
+    replaces correspondence + normal-equation assembly wholesale."""
 
     def cond(st: _LoopState):
         return (st.it < cfg.max_iterations) & ~st.converged
 
-    fused_refresh = isinstance(ne_fn, tuple)
-    if fused_refresh:
-        gather_fn, from_cand_fn, refresh = ne_fn
-
     def body(st: _LoopState):
-        if fused_refresh:
-            cand, hh = jax.lax.cond(
-                st.it % refresh == 0,
-                lambda _: gather_fn(st.pose),
-                lambda _: (st.cand, st.hh), None)
-            AtA, Atb, n_inl, w_sum, wres_sum = from_cand_fn(cand, hh, st.pose)
-        elif ne_fn is not None:
+        if ne_fn is not None:
             AtA, Atb, n_inl, w_sum, wres_sum = ne_fn(st.pose)
         else:
             corr = corr_fn(st.pose)
@@ -357,13 +300,12 @@ def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
             w_sum = jnp.sum(corr.weight)
             wres_sum = jnp.sum(corr.weight * jnp.abs(corr.residual))
         # Levenberg damping epsilon keeps the solve finite when rank-deficient;
-        # the degeneracy projection handles the semantics.  Unrolled Cholesky:
-        # XLA's general 6x6 linalg.solve costs ~0.17 ms/iter on TPU.
+        # the degeneracy projection handles the semantics.  Unrolled Cholesky
+        # instead of a general 6x6 linalg.solve.
         dx = smallmat.cholesky_solve(AtA, Atb, eps=1e-6)
 
         # eigendecomposition only on the first iteration (iterCount == 0 in
-        # the reference); skipping it on later iterations via cond saves the
-        # 6x6 eigh (~3 ms/iter on TPU)
+        # the reference); later iterations skip the 6x6 eigh via cond
         P, degen = jax.lax.cond(
             st.it == 0,
             lambda _: _degeneracy_projection(AtA, cfg.degeneracy_eig_thresh),
@@ -380,26 +322,15 @@ def _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg: RegistrationConfig,
         mean_res = wres_sum / jnp.maximum(w_sum, 1e-6)
         return _LoopState(pose=pose, P=P, degenerate=degen, it=st.it + 1,
                           converged=conv, num_inliers=n_inl,
-                          mean_residual=mean_res,
-                          cand=cand if fused_refresh else st.cand,
-                          hh=hh if fused_refresh else st.hh)
+                          mean_residual=mean_res)
 
-    if fused_refresh:
-        # shapes of the carried candidate block (values gathered at it==0)
-        cand0, hh0 = jax.eval_shape(gather_fn, init_pose6.astype(jnp.float32))
-        cand_init = jnp.zeros(cand0.shape, cand0.dtype)
-        hh_init = jnp.zeros(hh0.shape, hh0.dtype)
-    else:
-        cand_init = jnp.zeros((0, 0), jnp.float32)
-        hh_init = jnp.zeros((0, 0), jnp.int32)
     init = _LoopState(pose=init_pose6.astype(jnp.float32),
                       P=jnp.eye(6, dtype=jnp.float32),
                       degenerate=jnp.zeros((), bool),
                       it=jnp.zeros((), jnp.int32),
                       converged=~runnable,
                       num_inliers=jnp.zeros((), jnp.int32),
-                      mean_residual=jnp.zeros(()),
-                      cand=cand_init, hh=hh_init)
+                      mean_residual=jnp.zeros(()))
     st = jax.lax.while_loop(cond, body, init)
     return RegistrationResult(pose=st.pose, degenerate=st.degenerate,
                               converged=st.converged, iterations=st.it,
@@ -439,8 +370,7 @@ def register(scan: jax.Array, scan_mask: jax.Array,
     n_map = jnp.sum(map_mask.astype(jnp.int32))
     runnable = (n_scan > 30) & (n_map > 50)
     return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
-                    min_correspondences, ne_fn=_maybe_fused(scan, scan_mask,
-                                                            grid, cfg))
+                    min_correspondences)
 
 
 @partial(jax.jit, static_argnames=("cfg", "min_correspondences"))
@@ -505,20 +435,7 @@ def _loam_combined_ne(scan_surf, surf_mask, grid, map_surf, map_surf_mask,
         corner_out = corner_term(pose)
         return tuple(a + b for a, b in zip(surf_out, corner_out))
 
-    fused = _maybe_fused(scan_surf, surf_mask, grid, cfg)
-    if isinstance(fused, tuple):
-        # candidate reuse (corr_refresh_every) applies to the surf term's
-        # HBM gather; the corner term re-evaluates every iteration (its
-        # brute k-NN is cheap at corner counts)
-        gather_fn, from_cand_fn, refresh = fused
-        return (gather_fn,
-                lambda cand, hh, pose: combine(from_cand_fn(cand, hh, pose),
-                                               pose),
-                refresh)
-    if fused is not None:
-        return lambda pose: combine(fused(pose), pose)
-
-    def surf_unfused(pose):
+    def surf_term(pose):
         corr_s = find_correspondences(scan_surf, surf_mask, map_surf,
                                       map_surf_mask, pose, cfg, grid=grid)
         AtA_s, Atb_s = _normal_equations(scan_surf, corr_s, pose)
@@ -526,7 +443,7 @@ def _loam_combined_ne(scan_surf, surf_mask, grid, map_surf, map_surf_mask,
                 jnp.sum(corr_s.weight),
                 jnp.sum(corr_s.weight * jnp.abs(corr_s.residual)))
 
-    return lambda pose: combine(surf_unfused(pose), pose)
+    return lambda pose: combine(surf_term(pose), pose)
 
 
 @partial(jax.jit, static_argnames=("cfg", "min_correspondences"))
@@ -539,7 +456,7 @@ def register_loam_with_grid(scan_surf: jax.Array, surf_mask: jax.Array,
     """LOAM surf+corner registration against the persistent incremental surf
     voxel map (the production path) + a flat corner map cloud.  Corner maps
     stay flat (no grid): corner counts are small enough that the exact brute
-    MXU k-NN wins over a second hash grid's build cost per scan."""
+    matmul k-NN wins over a second hash grid's build cost per scan."""
     scan_surf = scan_surf.astype(jnp.float32)
     scan_corner = scan_corner.astype(jnp.float32)
     map_corner = map_corner.astype(jnp.float32)
@@ -573,8 +490,7 @@ def register_with_grid(scan: jax.Array, scan_mask: jax.Array,
     n_map = jnp.sum(grid.counts)
     runnable = (n_scan > 30) & (n_map > 50)
     return _gn_loop(scan, scan_mask, corr_fn, init_pose6, cfg, runnable,
-                    min_correspondences, ne_fn=_maybe_fused(scan, scan_mask,
-                                                            grid, cfg))
+                    min_correspondences)
 
 
 def transform_update(pose6: jax.Array, imu_rpy: jax.Array,

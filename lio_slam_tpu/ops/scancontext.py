@@ -1,4 +1,4 @@
-"""Scan Context place recognition, TPU-native.
+"""Scan Context place recognition as batched JAX programs.
 
 Rebuild of the vendored Scan Context implementation
 (`src/liorf/include/Scancontext.{h,cpp}`, Kim & Kim IROS 2018):
@@ -14,7 +14,7 @@ Rebuild of the vendored Scan Context implementation
   maintenance, always exact.
 - alignment (`distanceBtnScanContext`, :116-148): the reference prunes the
   column-shift search to +-10% around the sector-key argmin; we evaluate all
-  60 shifts as one batched einsum (cheaper on TPU than the pruning logic) and
+  60 shifts as one batched einsum (no data-dependent pruning) and
   return the best shift as a yaw initial guess.
 """
 
@@ -62,9 +62,9 @@ def make_descriptor(xyz: jax.Array, mask: jax.Array,
     ok = mask & (r < max_radius)
     zval = jnp.where(ok, z + lidar_height, -jnp.inf)
     idx = jnp.where(ok, ring * num_sector + sector, -1)
-    # dense one-hot max over bins instead of a scatter-max: an 8k-row
-    # scatter serializes on TPU (~0.9 ms); the (bins x N) masked reduction
-    # fuses into one streaming pass (~0.1 ms)
+    # dense one-hot max over bins instead of a scatter-max: the (bins x N)
+    # masked reduction fuses into one streaming pass with no write
+    # conflicts
     bins = jnp.arange(num_ring * num_sector, dtype=jnp.int32)[:, None]
     img = jnp.max(jnp.where(idx[None, :] == bins, zval[None, :], -jnp.inf),
                   axis=1)

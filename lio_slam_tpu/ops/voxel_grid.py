@@ -2,45 +2,26 @@
 
 The reference rebuilds a PCL kd-tree over the local map every scan
 (`mapOptmization.cpp:1846`) and queries 5-NN per point per GN iteration
-(:1631).  Kd-trees are pointer-chasing; the TPU-native equivalent is a voxel
+(:1631).  Kd-trees are pointer-chasing; the equivalent here is a voxel
 bucket grid in **bucket-major layout**: points live in a (T buckets x C slots
 x 3) table, so a query gathers whole buckets as wide contiguous rows instead
-of hundreds of scattered 12 B rows.  TPU gathers are granularity-bound (HBM
-reads below ~512 B waste most of the line), so the design dial is *insert
+of hundreds of scattered 12 B rows.  The design dial is *insert
 multiplicity vs gather width*:
 
 - halo="none": each point inserted once; a query scans the 27 surrounding
   cells (27 narrow gathers).
-- halo="xy": each point inserted under its 9 xy-neighbourhood cell keys; a
-  query scans only z±1 — 3 WIDE rows per query (TPU gathers are row-count
-  bound: 3 fetches of ~1 KB beat 9 of ~300 B); bucket cap must be ~3-4x "z"
 - halo="z": each point also inserted under its z±1 cell keys; a query scans
-  the 9 xy-neighbour cells.
+  the 9 xy-neighbour cells (the default).
+- halo="xy": each point inserted under its 9 xy-neighbourhood cell keys; a
+  query scans only z±1 — 3 wide rows per query; bucket cap must be ~3-4x
+  "z".
 - halo="full": each point inserted under all 27 neighbour cell keys; a query
-  gathers exactly ONE bucket — a single contiguous C·12 B row per query, the
-  layout the fused Pallas registration kernel consumes.  27x insert rows are
-  amortized by the incremental map (inserts happen per keyframe, queries per
-  GN iteration per scan).
+  gathers exactly ONE bucket — a single contiguous C·12 B row per query.  27x
+  insert rows are amortized by the incremental map (inserts happen per
+  keyframe, queries per GN iteration per scan).
 
-End-to-end measurements (v5e, round 4, full step replay at bench shapes —
-which layout wins depends on what the mission carries, not the isolated
-gather): z/24 = 378 scans/s; full/96 = 192 scans/s (the 27x insert rows +
-4x grid state lose more than the single wide gather row saves); xy was
-round 3's loss (230 vs 310).  Scan pre-sorting by cell cuts the fused call
-20% in isolation but loses ~5% end-to-end to the argsort
-(registration.sort_scan_by_cell, default off).  z stays the default.
-
-Round-5 lever audit (tools/prof_hbm_levers.py, real v5e): the candidate
-fetch is DESCRIPTOR-bound, not bytes-bound — the fused call is flat in C
-(1.47 ms at C=8 vs 1.63 ms at C=40, 5x the bytes) and exactly equals the
-bare XLA gather at every C, i.e. ~49 M row-fetches/s is the roof and the
-kernel compute is free.  Consequences, each measured: f16/quantized row
-packing cannot speed it (bytes are not the constraint); 512 B row sizing
-only inflates the reported GB/s; candidate-superset reuse is saturated
-(corr_refresh 1..6 -> 359..377 scans/s end-to-end, flat); the one
-descriptor-side lever (halo="full", 1 row/query) loses 2x end-to-end on
-insert amplification, as recorded above.  Raising absolute step throughput
-from here means fewer GATHERS per scan (algorithmic), not faster ones.
+Which layout wins depends on what the mission carries (grid state size and
+insert volume), not on the isolated gather; "z" is the default.
 
 Build/insert emit one (bucket, point) row per halo offset, sort all rows by
 bucket once, rank within runs, and scatter — rows of distinct cells that
@@ -139,7 +120,7 @@ def _insert_core(table: jax.Array, counts: jax.Array, points: jax.Array,
     hf = jnp.where(keep_row, h, T).reshape(-1)        # invalid rows sort last
     pts = jnp.broadcast_to(points[:, None, :], (M, K, 3)).reshape(-1, 3)
     # multi-operand sort carries the coordinates through the sort network
-    # directly (cheaper than argsort + three descriptor-bound row gathers)
+    # directly (cheaper than an argsort plus three row gathers)
     h_s, px_s, py_s, pz_s = jax.lax.sort(
         (hf, pts[:, 0], pts[:, 1], pts[:, 2]), num_keys=1)
     pts_s = jnp.stack([px_s, py_s, pz_s], axis=-1)
@@ -166,12 +147,10 @@ def build_grid(points: jax.Array, mask: jax.Array, cell_size: float,
                halo: str = "none", chunk: int = 262144) -> HashGrid:
     """Build a grid over `points`.  Inputs beyond `chunk` points are
     inserted in chunk-sized pieces under a fori_loop: the insert's
-    multi-operand lax.sort has K halo rows per point, and the TPU compile of
-    a single multi-million-row sort is superlinear-pathological (measured:
-    the K=256x8192-point full-map rebuild — a 6M-row sort — hung the v5e
-    AOT helper for >30 min and OOM-killed it at K=512, while chunked
-    inserts compile in seconds and cost only ~nc sequential sorts at loop-
-    event cadence)."""
+    multi-operand lax.sort has K halo rows per point, and one sort over a
+    whole full-map rebuild (millions of rows at K=2048 keyframes) is a
+    program whose compile time grows superlinearly; chunked inserts compile
+    quickly and cost ~nc sequential sorts at loop-event cadence."""
     cs = jnp.float32(cell_size)
     table = jnp.full((table_size, max_per_cell, 3), SENTINEL, points.dtype)
     counts = jnp.zeros(table_size, jnp.int32)
@@ -205,18 +184,6 @@ def insert_points(grid: HashGrid, points: jax.Array, mask: jax.Array,
     return HashGrid(table=table, counts=counts, cell_size=grid.cell_size)
 
 
-def gather_candidates(grid: HashGrid, queries: jax.Array) -> jax.Array:
-    """Full-halo single-bucket candidate fetch in the planar layout the fused
-    registration kernel consumes: (3C, N) with rows [x_0..x_{C-1}, y_*, z_*].
-    One contiguous C·12 B gather row per query."""
-    T, C, _ = grid.table.shape
-    coords = jnp.floor(queries / grid.cell_size).astype(jnp.int32)
-    hh = _cell_hash(coords, T)                                   # (N,)
-    cand = grid.table.reshape(T, C * 3)[hh]                      # (N, C*3)
-    N = queries.shape[0]
-    return jnp.transpose(cand.reshape(N, C, 3), (2, 1, 0)).reshape(3 * C, N)
-
-
 @partial(jax.jit, static_argnames=("k", "halo"))
 def query_knn(grid: HashGrid, queries: jax.Array, query_mask: jax.Array,
               k: int = 5, halo: str = "none") -> NeighborResult:
@@ -227,9 +194,8 @@ def query_knn(grid: HashGrid, queries: jax.Array, query_mask: jax.Array,
     Correct for any neighbour within `cell_size` of the query (the radius the
     registration gate uses) as long as bucket occupancy <= C.
 
-    Layout: offset-major — every intermediate keeps the N queries as the LAST
-    (lane) dimension, so the (O, C)-sized small dims never waste VPU tiles
-    (the query-major (N, O, C, 3) formulation is ~35% slower on TPU).
+    Layout: offset-major — every intermediate keeps the N queries as the
+    LAST dimension, so the small (O, C)-sized dims are never the minor axis.
     """
     T, C, _ = grid.table.shape
     N = queries.shape[0]
@@ -260,9 +226,8 @@ def query_knn(grid: HashGrid, queries: jax.Array, query_mask: jax.Array,
         slot_ok = ~jnp.broadcast_to(dup[:, None, :], (O, C, N))
         d2 = jnp.where(slot_ok.reshape(R, N), d2, _BIG)
     # k iterative masked mins along the (small) candidate axis.  Extraction
-    # is by one-hot masked reductions — scatter/take_along_axis per k would
-    # issue ~3kN tiny descriptors and costs ~2 ms at N=8k; the one-hot form
-    # is pure lane-parallel VPU streaming (~30% faster end to end).
+    # is by one-hot masked reductions instead of a scatter/take_along_axis
+    # per k: XLA fuses each round into one reduction over the candidates.
     rows = jax.lax.broadcasted_iota(jnp.int32, (R, 1), 0)
     nbs, dsts = [], []
     dd = d2

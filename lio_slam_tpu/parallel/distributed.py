@@ -1,13 +1,13 @@
 """Multi-process (multi-host) runtime plumbing.
 
 The reference's "cluster" is one machine wired by TCPROS (SURVEY.md §2.4);
-the TPU-native scale-out unit is a pod slice per host process, coordinated
+the scale-out unit here is one host process per slice of devices, coordinated
 by `jax.distributed` and programmed with the SAME global-mesh code as the
 single-host path (`parallel/multislice.py`): after `initialize()`,
-`jax.devices()` spans every host and a Mesh over it makes XLA place DCN
-collectives at process boundaries automatically.
+`jax.devices()` spans every host and a Mesh over it makes XLA place the
+inter-host collectives at process boundaries automatically.
 
-Nothing here is TPU-specific — tests/test_distributed.py drives this layer
+Nothing here is device-specific — tests/test_distributed.py drives this layer
 with two CPU processes x 4 virtual devices each, which exercises the real
 cross-process collective path (the closest thing to multi-host validation
 a single machine can provide).
@@ -27,10 +27,10 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """`jax.distributed.initialize` with env-var fallback.
 
-    Env contract (matches common pod launchers):
+    Env contract (matches common cluster launchers):
       LIO_COORDINATOR (host:port), LIO_NUM_PROCESSES, LIO_PROCESS_ID.
-    On real TPU pods with standard metadata, all three may be None and JAX
-    autodetects.
+    Where a cluster launcher provides the metadata JAX understands, all
+    three may be None and JAX autodetects.
     """
     coordinator_address = coordinator_address or os.environ.get("LIO_COORDINATOR")
     if num_processes is None and "LIO_NUM_PROCESSES" in os.environ:
@@ -46,10 +46,10 @@ def global_mesh(n_slices: int | None = None,
                 devices_per_slice: int | None = None) -> Mesh:
     """('slice', 'data') mesh over ALL processes' devices.
 
-    Default: one slice per process (the host boundary IS the DCN boundary),
-    'data' over each process's local devices — the layout
-    `multislice.psum_staged` assumes (ICI-first reduction, one small
-    partial per slice across DCN).
+    Default: one slice per process (the host boundary is the slice
+    boundary), 'data' over each process's local devices — the layout
+    `multislice.psum_staged` assumes (within-host reduction first, one
+    small partial per slice across hosts).
     """
     devs = jax.devices()
     if n_slices is None:

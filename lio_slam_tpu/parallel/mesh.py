@@ -1,11 +1,11 @@
 """Device-mesh construction and sharding helpers.
 
 The reference's concurrency model (SURVEY.md §2.4) is 4 ROS processes + OpenMP
-per-point loops on one machine.  The TPU-native equivalents:
+per-point loops on one machine.  The equivalents here:
 
 - OpenMP per-point parallel-for  ->  scan points sharded over the mesh 'data'
   axis; per-shard correspondence search + normal-equation blocks reduced with
-  `psum` over ICI (parallel/registration.py).
+  `psum` (parallel/registration.py).
 - process pipeline               ->  one SPMD program per scan (pipeline/lio.py).
 - map/keyframe state at scale    ->  map points shardable over the same axis.
 """

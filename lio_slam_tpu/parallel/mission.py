@@ -3,18 +3,20 @@
 Round-4 closed the library gap (sharded registration + sharded sparse BA,
 `parallel/registration.py` / `parallel/sparse.py`) but the mission path —
 `LioState`'s persistent incremental `map_grid` and keyframe cloud store —
-still lived on ONE device, so no mission could exceed one chip's HBM
+still lived on ONE device, so no mission could exceed one device's memory
 (round-4 verdict missing #1).  This module is the missing piece: a `MapOps`
 backend (`pipeline/lio.MapOps`) that runs the SAME mission code path with
 
 - the persistent `HashGrid` as PER-DEVICE SHARDS: the global bucket table is
   (D·T, C, 3) sharded along buckets; each device owns an independent grid of
   T buckets holding its 1/D chunk of every inserted cloud, so total map
-  capacity is D x one device's.  Point->device ownership is by scan-chunk
-  (any partition works: the k-NN merge below is global);
+  capacity is D x one device's.  Point->device ownership is by chunk of the
+  stored keyframe cloud (any partition works: the k-NN merge below is
+  global); `spread` deals each scan's points round-robin into those chunks,
+  since the downsample packs the valid points first;
 - registration's 5-NN as local-top-k + `all_gather` merge carrying neighbour
   POSITIONS (the `make_map_sharded_register` pattern) against the persistent
-  shards, with per-device scan-chunk normal equations `psum`'d over ICI;
+  shards, with per-device scan-chunk normal equations `psum`'d;
 - full-map rebuilds (loop corrections) fully parallel: each device rebuilds
   its shard from its chunk of the keyframe clouds — zero communication;
 - the full-graph correction through the factor-sharded sparse solver
@@ -27,7 +29,7 @@ giants are the clouds and the bucket table).
 
 The reference's equivalent state is bounded only by host RAM
 (`mapOptmization.cpp:1519-1588` assembles local maps from an unbounded
-keyframe history); here a pod slice takes that role with
+keyframe history); here several devices take that role with
 `jax.sharding` + collectives instead of one big memory.
 """
 
@@ -66,6 +68,19 @@ def make_sharded_map_ops(mesh: Mesh, cfg: Config, axis: str = "data",
         raise ValueError(
             f"max_scan_points={s.max_scan_points} and max_keyframe_points="
             f"{s.max_keyframe_points} must divide by the mesh size {D}")
+    # the points a keyframe keeps (KeyframeStore holds cloud[:kept]); the
+    # map is built from exactly these, before and after a rebuild
+    kept = min(s.max_keyframe_points, s.max_scan_points)
+
+    def spread(cloud):
+        """Deal the first `kept` points round-robin into the D contiguous
+        chunks that the store's sharding and `insert` give each device."""
+        def deal(a):
+            head = a[:kept].reshape((kept // D, D) + a.shape[1:])
+            return jnp.concatenate(
+                [jnp.swapaxes(head, 0, 1).reshape(a[:kept].shape),
+                 a[kept:]])
+        return cloud._replace(xyz=deal(cloud.xyz), mask=deal(cloud.mask))
 
     def empty_grid():
         return vg.empty_grid(r.nn_radius, D * T_local, r.grid_max_per_cell)
@@ -80,7 +95,7 @@ def make_sharded_map_ops(mesh: Mesh, cfg: Config, axis: str = "data",
              check_vma=False)
     def _insert(table, counts, cs, pts, mask):
         d = jax.lax.axis_index(axis)
-        chunk = pts.shape[0] // D
+        chunk = kept // D
         sl = lambda a: jax.lax.dynamic_slice_in_dim(a, d * chunk, chunk)
         return vg._insert_core(table, counts, sl(pts), sl(mask), cs, halo)
 
@@ -225,7 +240,8 @@ def make_sharded_map_ops(mesh: Mesh, cfg: Config, axis: str = "data",
 
     return MapOps(empty_grid=empty_grid, register=register, insert=insert,
                   rebuild=rebuild, full_solve=full_solve,
-                  marginal_cov=marginal_cov, constrain=constrain)
+                  marginal_cov=marginal_cov, constrain=constrain,
+                  spread=spread)
 
 
 def make_sharded_mission(mesh: Mesh, cfg: Config, axis: str = "data"):

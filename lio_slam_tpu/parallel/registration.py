@@ -2,10 +2,10 @@
 
 The reference parallelizes its registration hot loop with an OpenMP
 parallel-for over scan points (`mapOptmization.cpp:1622`,
-`numberOfCores: 12`).  The TPU-native scaling axis is the same data axis,
-but over chips: scan points are sharded along the mesh's 'data' axis, each
+`numberOfCores: 12`).  The scaling axis here is the same data axis,
+but over devices: scan points are sharded along the mesh's 'data' axis, each
 device searches correspondences against its (replicated) local map and builds
-its 6x6 normal-equation block, and a `psum` over ICI reduces the blocks —
+its 6x6 normal-equation block, and a `psum` reduces the blocks —
 the GN solve itself is a 6x6 system, replicated.
 
 The map can also be sharded (each shard holds a slice of map points and the

@@ -3,7 +3,7 @@
 The reference's loop memory is unbounded — iSAM2 appends keyframes/factors
 forever (`mapOptmization.cpp:2097-2134`) and Scan Context retrieval covers
 the full history (`Scancontext.cpp:253-296`), so lap-100 still closes loops
-against lap-1.  The TPU engine's device store is a fixed-capacity ring
+against lap-1.  This engine's device store is a fixed-capacity ring
 (`pipeline/lio.py:_evict_oldest`); without this tier, an evicted keyframe's
 cloud, descriptor, and loop candidacy are gone and long missions degrade to
 short-memory odometry (round-3 verdict missing #1).

@@ -14,7 +14,7 @@ Rebuild of the reference's GPS plumbing in `mapOptmization.cpp`:
   (`liorf/gpsdata` GpswithHeading output).
 
 All of this is stream/timing logic on scalars — it stays on the host in
-float64; only the metric ENU positions are handed to the TPU step as GPS
+float64; only the metric ENU positions are handed to the device step as GPS
 factors.
 """
 

@@ -4,8 +4,8 @@ Rebuild of `src/liorf/src/imuPreintegration.cpp` (two classes in one node):
 
 - `IMUPreintegration::odometryHandler` (:271-516): at each lidar odometry
   correction (~10 Hz) the reference adds an ImuFactor + bias BetweenFactor +
-  lidar pose prior to a periodically-reset iSAM2 graph.  The TPU-native
-  equivalent is an error-state update on [dtheta, dv, dp, dbg, dba] (15):
+  lidar pose prior to a periodically-reset iSAM2 graph.  The
+  equivalent here is an error-state update on [dtheta, dv, dp, dbg, dba] (15):
   propagate covariance through the preintegrated window (Forster covariance +
   bias random walk sigma*sqrt(dt), :413), then fuse the lidar pose with noise
   sigma 0.05 rot / 0.1 trans — inflated to 1.0 when the registration flagged
@@ -93,7 +93,7 @@ def make_frontend(cfg: ImuConfig):
         acc, gyr, dt = pre.apply_pileup_gate(acc, gyr, dt, g,
                                              min_dt=min_dt)
         # log-depth associative-scan version (matches the sequential
-        # reference; ~20x faster for a 512-sample window on TPU)
+        # reference, log depth instead of a sequential chain)
         return pre.preintegrate_parallel(acc, gyr, dt, mask, bg, ba,
                                          cfg.acc_noise, cfg.gyr_noise)
 
@@ -116,12 +116,12 @@ def make_frontend(cfg: ImuConfig):
 
         def update(state: ImuFrontendState):
             # the 15x15 covariance algebra below MUST run at full float32:
-            # the TPU MXU's default 'float32' matmul is a multi-pass bf16
-            # decomposition whose error floor is far above the covariance's
-            # small-magnitude bias blocks — measured as a TPU-only
-            # systematic ~8 cm/scan drift (CPU bit-identical code: 7 mm
-            # total) after the Joseph-form update landed.  These matrices
-            # are tiny; HIGHEST costs nothing.
+            # a reduced-precision matmul (bf16 passes, or TF32 on a GPU)
+            # has an error floor far above the covariance's small-magnitude
+            # bias blocks — measured as a systematic ~8 cm/scan drift on a
+            # backend whose default matmul was reduced precision (full
+            # float32: 7 mm total).  These matrices are tiny; HIGHEST costs
+            # nothing.
             prec = jax.lax.Precision.HIGHEST
             mm = lambda a, b: jnp.matmul(a, b, precision=prec)
             pint = _preintegrate(acc, gyr, dt, mask, state.bias_gyr,

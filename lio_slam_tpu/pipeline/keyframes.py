@@ -1,6 +1,6 @@
 """Keyframe tensor store + local-map assembly.
 
-TPU-native replacement for the reference's keyframe machinery
+Replacement for the reference's keyframe machinery
 (`src/liorf/src/mapOptmization.cpp`):
 
 - `cloudKeyPoses3D/6D` + `surfCloudKeyFrames` (:74-86) -> fixed-capacity
@@ -8,7 +8,7 @@ TPU-native replacement for the reference's keyframe machinery
 - `extractNearby`/`extractCloud` (:1519-1588): kd-tree radius search over
   keyframe positions + last-10 s keyframes, assemble the local map from
   transformed keyframe clouds.  The reference caches transformed clouds in
-  `laserCloudMapContainer` (evicted >1000 entries, cleared on loop); on TPU a
+  `laserCloudMapContainer` (evicted >1000 entries, cleared on loop); here a
   batched gather+transform of ~50 keyframe clouds is a couple of matmuls, so
   we recompute every scan and the cache (and its invalidation bugs) disappears.
 - keyframe gating (:1909-1928).

@@ -1,6 +1,6 @@
 """The per-scan LIO mapping step — one SPMD JAX program.
 
-This is the TPU-native equivalent of the reference's `mapOptimization` node
+This is the equivalent of the reference's `mapOptimization` node
 main path (`src/liorf/src/mapOptmization.cpp:432-506`
 `laserCloudInfoHandler`): where the reference runs 4 ROS processes exchanging
 TCPROS messages, here one jitted function per scan performs
@@ -164,6 +164,8 @@ class MapOps(NamedTuple):
     marginal_cov: object  # (graph, idx) -> (6, 6)
     constrain: object     # (state) -> state (sharding annotations; identity
                           # on the single-device path)
+    spread: object        # (cloud) -> cloud: point order that spreads a
+                          # scan over the devices (identity on one device)
 
 
 def default_map_ops(cfg: Config) -> MapOps:
@@ -198,7 +200,7 @@ def default_map_ops(cfg: Config) -> MapOps:
                                          r.grid_max_per_cell),
         register=register, insert=insert, rebuild=rebuild,
         full_solve=full_solve, marginal_cov=marginal_cov,
-        constrain=lambda state: state)
+        constrain=lambda state: state, spread=lambda cloud: cloud)
 
 
 def _update_initial_guess(state: LioState, inp: ScanInput) -> jax.Array:
@@ -338,8 +340,8 @@ def _evict_oldest(state: LioState) -> LioState:
       are dropped (masked out — their constraint was absorbed into the new
       prior's anchor).
 
-    O(K) copies per eviction (~keyframe rate), negligible against HBM
-    bandwidth; the host sees the event via StepOutput.evictions / health().
+    O(K) copies per eviction (~keyframe rate), negligible against device
+    memory bandwidth; the host sees the event via StepOutput.evictions / health().
     """
     store, g = state.store, state.graph
     K = store.poses.shape[0]
@@ -473,9 +475,9 @@ def _save_keyframe(state: LioState, inp: ScanInput, pose: jax.Array,
     # invoked by the host — the reference's correctPoses runs on the mapping
     # thread after its separate loop thread queues factors, same structure)
     g = state.graph
-    # dense (W*6)^2 window solve: a block-Thomas chain solve was tried and
-    # measured 2x SLOWER on TPU (sequential 6x6 scalar chains are
-    # latency-bound; see tools/prof_window.py) — XLA's blocked Cholesky wins
+    # dense (W*6)^2 window solve: XLA's blocked Cholesky instead of a
+    # block-Thomas chain (sequential 6x6 scalar chains are latency-bound;
+    # tools/prof_window.py times both)
     g = solver.solve_window_compact(g, store.count, cfg.static.window_size,
                                     iterations=2)
 
@@ -581,6 +583,7 @@ def make_lio_step(cfg: Config, ops: MapOps = None):
         else:
             scan_ds = pc.voxel_downsample(inp.cloud, r.mapping_surf_leaf_size,
                                           s.max_scan_points)
+        scan_ds = ops.spread(scan_ds)
 
         use_corner = r.use_corner_features and inp.corner is not None
         if use_corner:

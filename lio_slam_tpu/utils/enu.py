@@ -6,7 +6,7 @@ Replaces GeographicLib::LocalCartesian as used by the reference's GPS intake
 
 Geodetic precision needs ~1e-9 rad; this module deliberately stays in numpy
 float64 on the host — only the resulting metric ENU coordinates (cm-scale
-dynamic range) cross onto the TPU.
+dynamic range) cross onto the device.
 """
 
 from __future__ import annotations

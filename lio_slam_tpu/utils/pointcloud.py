@@ -1,6 +1,6 @@
 """Masked fixed-shape point tensors + voxel downsampling.
 
-TPU replacement for PCL's dynamic clouds and `pcl::VoxelGrid` (used throughout
+Replacement for PCL's dynamic clouds and `pcl::VoxelGrid` (used throughout
 the reference: `mapOptmization.cpp` downSizeFilter*, `imageProjection.cpp`
 filtering).  Every cloud is a `(capacity, D)` float32 array plus a `(capacity,)`
 bool mask; all ops are static-shape, jit/vmap-safe, and deterministic.
@@ -124,8 +124,8 @@ def voxel_downsample(cloud: Cloud, leaf_size: float, max_out: int,
     leaf = jnp.float32(leaf_size)
     vid = _voxel_ids(cloud.xyz, cloud.mask, leaf)
     # multi-operand lax.sort carries the payload columns through the sort
-    # network directly — cheaper on TPU than argsort + descriptor-bound
-    # row gathers of the same columns
+    # network directly — cheaper than an argsort plus row gathers of the
+    # same columns
     has_attr = with_attr and cloud.attr is not None
     cols = [cloud.xyz[:, 0], cloud.xyz[:, 1], cloud.xyz[:, 2], cloud.mask]
     if has_attr:

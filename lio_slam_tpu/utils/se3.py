@@ -12,7 +12,7 @@ Conventions:
   pcl::getTransformation / tf::Matrix3x3::getRPY used by the reference.
 - Quaternions are (w, x, y, z).
 - Small-angle branches use 2nd/4th-order Taylor series so everything is stable
-  in float32 (the TPU native dtype) without float64 emulation.
+  in float32 (the accelerator's fast dtype) without float64 emulation.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""Tiny fixed-size linear algebra, unrolled for TPU.
+"""Tiny fixed-size linear algebra, unrolled.
 
 XLA lowers `jnp.linalg.solve` / `jnp.linalg.eigh` on a 6x6 through its
 general batched LAPACK-style machinery (blocked triangular solves, iterative
-eigensolver) — measured ~0.17 ms EACH on a v5e for a single 6x6, which is
-real money inside the per-scan GN loop (`ops/registration.py`).  The
+eigensolver) — a long chain of small kernels for a single 6x6, inside the
+per-scan GN loop (`ops/registration.py`).  The
 reference does these with OpenCV `cv::solve(QR)` and `cv::eigen`
 (`src/liorf/src/mapOptmization.cpp:1781-1808`) on the CPU where small dense
-ops are cheap; the TPU-native equivalent is fully unrolled scalar code that
+ops are cheap; the equivalent here is fully unrolled scalar code that
 XLA schedules as a short dependency chain (~a few us).
 
 All functions are pure jnp, shape-generic over leading batch dims, and

@@ -1,6 +1,6 @@
 // liorf_runtime — native host runtime for lio_slam_tpu.
 //
-// TPU-native replacement for the reference's intra-process runtime plumbing
+// Replacement for the reference's intra-process runtime plumbing
 // (C++ there too): the bounded subscriber deques + mutex handoff in
 // imageProjection/mapOptmization/imuPreintegration (e.g.
 // imageProjection.cpp:116-118 cloud queue 5-deep, IMU/odom queues 2000-deep,

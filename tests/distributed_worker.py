@@ -2,8 +2,8 @@
 
 Two of these run simultaneously (LIO_PROCESS_ID 0/1), each with 4 virtual
 CPU devices, forming a 2-process x 4-device pod: the ('slice', 'data') mesh
-crosses the process boundary exactly where DCN sits on a real multi-host
-deployment.  Runs the multislice pose-graph solver on a deterministic chain
+crosses the process boundary exactly where the inter-host network sits on a
+real multi-host deployment.  Runs the multislice pose-graph solver on a deterministic chain
 graph and writes the optimized poses to OUT so the parent can compare
 against the single-process reference.
 
@@ -48,7 +48,7 @@ def main():
     mesh = distributed.global_mesh()
     assert mesh.shape == {"slice": 2, "data": 4}
 
-    # 1) DCN-staged pose-graph solve
+    # 1) host-staged pose-graph solve
     g, n = make_chain_fixture()
     solve = multislice.make_multislice_solver(mesh)
     g_in = jax.tree.map(lambda a: distributed.replicated(mesh, a), g)
@@ -83,7 +83,7 @@ def main():
 
     # 4) MAP-sharded registration with the map sharded ACROSS the process
     #    boundary (axis='slice'): per-process partial 5-NN, all_gather
-    #    top-k merge over DCN
+    #    top-k merge across the processes
     cfg_ms = RegistrationConfig(max_iterations=10, degeneracy_eig_thresh=1.0,
                                 grid_table_size=2048, grid_max_per_cell=16)
     reg_ms = preg.make_map_sharded_register(mesh, cfg_ms, axis="slice")

@@ -1,10 +1,10 @@
-"""Multi-process (multi-host) validation of the DCN scaling layer.
+"""Multi-process (multi-host) validation of the inter-host scaling layer.
 
 Spawns TWO separate Python processes, each with 4 virtual CPU devices,
 joined by `jax.distributed` into one 8-device pod with a ('slice', 'data')
 mesh whose 'slice' axis crosses the process boundary — the same topology a
-2-host TPU deployment has, with the inter-process channel standing in for
-DCN.  The multislice pose-graph solver must produce the same result as the
+2-host deployment has, with the inter-process channel standing in for the
+network between hosts.  The multislice pose-graph solver must produce the same result as the
 single-process reference.
 
 This is the strongest multi-host evidence a single machine can provide:

@@ -1,5 +1,5 @@
 """Multi-slice (2D 'slice' x 'data' mesh) tests on the 8-way virtual mesh:
-the DCN-staged solver and pod-wide registration must match the single-device
+the host-staged solver and mesh-wide registration must match the single-device
 reference implementations."""
 
 import jax

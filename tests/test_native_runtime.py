@@ -1,12 +1,16 @@
-"""Native host-runtime bindings (built on demand; skipped if no toolchain)."""
+"""Native host-runtime bindings (built from source on first use; skipped if
+no C++ toolchain)."""
 
 import numpy as np
 import pytest
 
 from lio_slam_tpu.io import native
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native runtime not built")
+
+@pytest.fixture(autouse=True)
+def _native_runtime():
+    if not native.available():
+        pytest.skip("native runtime could not be built (needs make and g++)")
 
 
 class TestRingBuffer:

@@ -75,8 +75,8 @@ def test_sharded_no_loops_chain_only():
 
 
 def test_sharded_2d_mesh_staged():
-    """('slice', 'data') mesh: assembly reduced ICI-first then across
-    slices — same numbers, different collective staging."""
+    """('slice', 'data') mesh: assembly reduced within each slice first,
+    then across slices — same numbers, different collective staging."""
     from lio_slam_tpu.parallel import multislice as ms
     g = make_loop_graph(64)
     mesh = ms.make_multislice_mesh(2, 4)

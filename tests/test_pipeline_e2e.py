@@ -1,5 +1,5 @@
 """End-to-end golden test: replay a synthetic sequence through the full
-per-scan LIO step and score ATE — the TPU build's stand-in for the reference's
+per-scan LIO step and score ATE — this build's stand-in for the reference's
 bag-replay validation (SURVEY.md §4)."""
 
 import dataclasses

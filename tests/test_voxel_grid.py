@@ -202,25 +202,6 @@ def test_fullhalo_masked_points_ignored():
     assert int(got.valid.sum()) == 4
 
 
-def test_gather_candidates_planar_layout():
-    """gather_candidates returns (3C, N) planar rows consistent with the
-    table bucket each query hashes to."""
-    rs = np.random.RandomState(8)
-    ref = rs.randn(400, 3).astype(np.float32) * 3
-    grid = vg.build_grid(jnp.asarray(ref), jnp.ones(400, bool), 1.0, 1024,
-                         64, halo="full")
-    q = jnp.asarray(ref[:32])
-    cand = np.asarray(vg.gather_candidates(grid, q))
-    C = 64
-    assert cand.shape == (3 * C, 32)
-    # cross-check against query_knn: the 1-NN of a query that coincides with
-    # a map point must appear among its candidates at distance ~0
-    cx, cy, cz = cand[:C], cand[C:2 * C], cand[2 * C:]
-    qn = np.asarray(q)
-    d2 = (cx - qn[:, 0]) ** 2 + (cy - qn[:, 1]) ** 2 + (cz - qn[:, 2]) ** 2
-    assert np.all(d2.min(axis=0) < 1e-8)
-
-
 def test_xyhalo_matches_bruteforce_within_radius():
     """xy-halo layout (3-cell z query over xy-9 inserted buckets) covers the
     same 27-cell neighbourhood — exact for in-radius neighbours."""
@@ -245,7 +226,7 @@ def test_xyhalo_matches_bruteforce_within_radius():
 
 def test_build_grid_chunked_matches_monolithic():
     """Chunked build (large-input path: fori_loop of small inserts instead
-    of one multi-million-row sort whose TPU compile is pathological) must
+    of one multi-million-row sort whose compile time grows superlinearly) must
     yield the same neighbours as the single-sort build."""
     import numpy as np
     from lio_slam_tpu.ops import voxel_grid as vg

@@ -1,15 +1,13 @@
-"""TPU timing: GPS-gate marginal covariance + fused-kernel tile sweep."""
+"""Timing of the GPS gate's marginal covariance (K=256 dense solver)."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import time
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 
 from lio_slam_tpu.config import Config, RegistrationConfig, StaticConfig
 from lio_slam_tpu.graph import solver
-from lio_slam_tpu.ops import fused_corr, voxel_grid as vg
 from lio_slam_tpu.pipeline import lio
 from tests.graph_fixtures import make_chain_fixture
 
@@ -55,18 +53,3 @@ def marg_body(c):
 
 
 timeit("marginal_covariance K=256", loop(marg_body))
-
-rng = np.random.default_rng(0)
-scan = jnp.asarray(rng.uniform(-30, 30, (8192, 3)).astype(np.float32))
-scan_mask = jnp.ones(8192, bool)
-map_pts = jnp.asarray(rng.uniform(-40, 40, (65536, 3)).astype(np.float32))
-grid = vg.build_grid(map_pts, jnp.ones(65536, bool), 1.0, 32768, 24, halo="z")
-pose = jnp.zeros(6, jnp.float32)
-jax.block_until_ready(grid)
-
-for tile in (256, 512, 1024, 2048):
-    def body(c, tile=tile):
-        AtA, Atb, n_, ws, wr = fused_corr.fused_normal_equations(
-            grid, scan + c * 1e-9, scan_mask, pose, halo="z", tile=tile)
-        return c + AtA.sum() + ws
-    timeit(f"fused z tile={tile}", loop(body), reps=30)

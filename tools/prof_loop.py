@@ -1,4 +1,4 @@
-"""TPU timing: loop-closure detector cost at production shapes.
+"""Device timing: loop-closure detector cost at production shapes.
 
 The detector's dominant cost is the submap assembly (`loopFindNearKeyframes`,
 mapOptmization.cpp:1360-1383): 2*search_num+1 = 51 keyframes x 8192 points =

@@ -1,6 +1,6 @@
-"""TPU timing: full per-scan step composition at bench shapes.
+"""Device timing: full per-scan step composition at bench shapes.
 
-Where do the ~5.4 ms/scan go?  Times each lio_step sub-stage in isolation
+Where does the per-scan time go?  Times each lio_step sub-stage in isolation
 (fori_loop REPS inside one jit, data-dependency threaded)."""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -133,7 +133,7 @@ def fullstep_run():
 
 timeit("voxel_downsample 32k->8k", loop(ds_body))
 timeit("hash_downsample 32k->8k", loop(hashds_body))
-timeit("register_with_grid (fused, uniform)", loop(reg_body))
+timeit("register_with_grid (uniform)", loop(reg_body))
 timeit("insert_points z 8k", loop(insert_body))
 timeit("scancontext descriptor", loop(sc_body))
 timeit("solve_window_compact x2 (W=32)", loop(window_body))

@@ -1,4 +1,4 @@
-"""TPU timing: window-solve internals — where do the 2.3 ms go?"""
+"""Device timing: window-solve internals — where does the time go?"""
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import time

@@ -1,5 +1,4 @@
-"""Multi-chip scaling harness (BASELINE.md north star: >=80% scans/s scaling
-efficiency on a multi-host slice).
+"""Multi-device scaling harness (scans/s scaling efficiency across cards).
 
 Two components, swept over 1/2/4/.../N-device meshes at FIXED total work:
 
@@ -16,19 +15,18 @@ Two components, swept over 1/2/4/.../N-device meshes at FIXED total work:
   cloud store, all-gather top-k registration; parallel/mission.py).  Total
   map capacity grows with n, so this sweep holds PER-DEVICE grid size
   fixed and reports throughput at each n (weak-scaling of capacity at
-  steady throughput is the goal on real chips).
+  steady throughput is the goal on real cards).
 
 Interpretation depends on the backend:
-- real multi-chip (--backend tpu on a slice): devices add silicon; report
+- GPUs (--backend gpu on a multi-card host): devices add silicon; report
   strong-scaling efficiency  eff_n = T_1 / (n * T_n)  (>=0.8 is the target).
-- CPU virtual devices (default here — only ONE real TPU chip is attached):
-  all devices share one socket, so T_n ~= T_1 is ideal; report partition
-  OVERHEAD  ovh_n = T_n / T_1  (collective + resharding cost; 1.0 is ideal).
-  Low overhead on shared silicon is the necessary precondition for high
-  efficiency on real chips.
+- CPU virtual devices (default): all devices share one socket, so
+  T_n ~= T_1 is ideal; report partition OVERHEAD  ovh_n = T_n / T_1
+  (collective + resharding cost; 1.0 is ideal).  Low overhead on shared
+  silicon is the necessary precondition for high efficiency on real cards.
 
 Prints one JSON line per (component, n) plus a bench.py-shaped summary.
-Usage: python tools/scaling_sweep.py [--devices 8] [--backend cpu|tpu] [--out f]
+Usage: python tools/scaling_sweep.py [--devices 8] [--backend cpu|gpu] [--out f]
 """
 import argparse
 import json
@@ -44,7 +42,7 @@ def main():
     ap.add_argument("--devices", type=int, default=8)
     ap.add_argument("--scan-points", type=int, default=16384)
     ap.add_argument("--map-points", type=int, default=65536)
-    ap.add_argument("--backend", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--backend", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -71,7 +69,7 @@ def main():
 
     n_dev = min(args.devices, len(jax.devices()))
     sizes = [n for n in (1, 2, 4, 8, 16, 32) if n <= n_dev]
-    real_scaling = args.backend == "tpu" and n_dev > 1
+    real_scaling = args.backend == "gpu" and n_dev > 1
 
     def timeit(fn, reps=7):
         """Median of 7 (matches __graft_entry__.dryrun_multichip): single
@@ -99,8 +97,7 @@ def main():
                   u(M - M // 2, -40, 40), u(M - M // 2, 0, 8)], 1)])
     scan = (world[rs.choice(M, N, replace=False)]
             + rs.randn(N, 3).astype(np.float32) * 0.01)
-    rcfg = RegistrationConfig(max_iterations=10,
-                              use_fused_kernel=(args.backend == "tpu"))
+    rcfg = RegistrationConfig(max_iterations=10)
     for n in sizes:
         mesh = mesh_mod.make_mesh(n)
         reg = mesh_reg = preg.make_sharded_register(mesh, rcfg)
@@ -116,9 +113,7 @@ def main():
         static=StaticConfig(
             max_raw_points=N, max_scan_points=N // 4, max_map_points=M,
             max_keyframes=128, max_keyframe_points=N // 4,
-            max_loop_queue=4, max_gps_queue=4, window_size=16),
-        registration=RegistrationConfig(
-            use_fused_kernel=(args.backend == "tpu")))
+            max_loop_queue=4, max_gps_queue=4, window_size=16))
     step = lio.make_lio_step(cfg)
     n_scans = 8
     seq = synthetic.make_sequence(n_scans=n_scans, n_points=N, seed=0,
@@ -220,7 +215,7 @@ def main():
     if real_scaling:
         summary = {"metric": "scaling_efficiency",
                    "value": reg_last["efficiency"],
-                   "unit": f"strong-scaling at {reg_last['devices']} chips",
+                   "unit": f"strong-scaling at {reg_last['devices']} cards",
                    "vs_baseline": round(reg_last["efficiency"] / 0.8, 4)}
     else:
         summary = {"metric": "partition_overhead",
